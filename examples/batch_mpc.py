@@ -1,6 +1,6 @@
-"""B parallel MPC controllers stepped in lockstep on one chip.
+"""B parallel MPC controllers stepped in lockstep on one card.
 
-Combines three TPU-native features no single-problem solver has:
+Combines three batched-solver features no single-problem solver has:
 the block-tridiagonal backend (O(N b^3) stage factorization), the
 batched device-resident parametric API (one update_bounds for all B
 rollouts), and warm starting across receding-horizon steps."""

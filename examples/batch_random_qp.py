@@ -1,4 +1,4 @@
-"""Thousands of QPs in one compiled program — the TPU-native headline.
+"""Thousands of QPs in one compiled program — the batched headline.
 
 The reference solves one QP per process; here a single jitted program
 scales, classifies rho, factorizes, runs the masked ADMM loop, polishes

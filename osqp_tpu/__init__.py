@@ -7,9 +7,10 @@ A from-scratch JAX/XLA re-design with the capabilities of OSQP 0.6.2
     subject to  l <= A x <= u
 
 Same algorithm family (ADMM with Ruiz equilibration, adaptive rho,
-infeasibility certificates, solution polishing), TPU-first architecture:
+infeasibility certificates, solution polishing), accelerator-first
+architecture:
 
-* dense batched KKT algebra on the MXU instead of sparse LDL' + AMD,
+* dense batched KKT algebra instead of sparse LDL' + AMD,
 * the whole solve is one jitted ``lax.while_loop`` (state = pytree),
 * native instance-batching: thousands of QPs per chip via one batched
   program (``osqp_tpu.batch``), sharded across meshes (``osqp_tpu.parallel``).

@@ -128,7 +128,7 @@ def admm_step(
     f64 reference trajectory.  Knuth TwoSum keeps the swallowed low
     bits in ``y_lo`` and re-injects them into the next increment, which
     restores the f64 iteration trajectory at pure-f32 storage cost
-    (one extra (B, m) vector, 5 VPU adds)."""
+    (one extra (B, m) vector, 5 elementwise adds)."""
     x_prev, z_prev, y = it.x, it.z, it.y
     alpha = dyn.alpha
 

@@ -38,11 +38,10 @@ from .constants import (
 
 def fallback_context(dtype_str):
     """Context for re-solving failed instances in a wider dtype: enables
-    x64 when the process runs f32, and routes compute to the CPU backend
-    when the default backend cannot do f64 (TPU).  The reference's f64
-    is unconditional; here f32-on-TPU is the fast path and this is the
-    accuracy escape hatch.  No-op for non-64-bit fallbacks or when
-    already on an x64-capable default backend."""
+    x64 when the process runs f32, so a float64 re-solve runs as float64
+    on the default device.  The reference's f64 is unconditional; here
+    f32 is the fast path and this is the accuracy escape hatch.  No-op
+    for non-64-bit fallbacks or when x64 is already on."""
     from contextlib import ExitStack
 
     import jax
@@ -52,13 +51,6 @@ def fallback_context(dtype_str):
         return st
     if not jax.config.jax_enable_x64:
         st.enter_context(jax.enable_x64(True))
-    if jax.default_backend() != "cpu":
-        try:
-            cpu = jax.devices("cpu")[0]
-        except RuntimeError:
-            cpu = None  # cpu platform not exposed; stay on default
-        if cpu is not None:
-            st.enter_context(jax.default_device(cpu))
     return st
 
 
@@ -75,17 +67,38 @@ def _next_bucket(v: int, minimum: int = 8) -> int:
     return -(-v // 512) * 512
 
 
-# Per-instance dense device footprint (bytes) for a padded (N, M) QP in
-# f32: P + Minv (N^2 each), A + AMinvT + scaled copies (~4 N M), plus
-# transient factor/polish temps of the same order.  Used to cap the
-# per-dispatch batch so one bucket's solve stays within HBM (v5e: 16G;
-# observed OOM at B=2 for N=M=8192).
-_HBM_BUDGET = float(4e9)
+# Per-instance dense device footprint for a padded (N, M) QP:
+# P + Minv (N^2 each), A + AMinvT + scaled copies (~4 N M), plus
+# transient factor/polish temps of the same order — (3 N^2 + 5 N M)
+# words.  One bucket dispatch may use _MEMORY_FRACTION of the memory the
+# device reports as its limit (the rest is headroom for the estimate's
+# slack, XLA's temporaries and other live arrays).  The CPU backend
+# reports no limit; it gets _CPU_BUDGET.  An accelerator that reports no
+# limit is an error: a guessed budget either OOMs or starves it.
+_MEMORY_FRACTION = 0.25
+_CPU_BUDGET = 4e9
 
 
-def _max_chunk(N: int, M: int, dtype_bytes: int = 4) -> int:
+def _memory_budget(device=None) -> float:
+    """Bytes one bucket dispatch may use on ``device`` (default: this
+    process's first device)."""
+    import jax
+
+    device = device or jax.local_devices()[0]
+    stats = device.memory_stats() or {}
+    if "bytes_limit" in stats:
+        return _MEMORY_FRACTION * float(stats["bytes_limit"])
+    if device.platform == "cpu":
+        return _CPU_BUDGET
+    raise RuntimeError(
+        f"device {device} ({device.platform}) reports no memory limit; "
+        "cannot size bucket chunks"
+    )
+
+
+def _max_chunk(N: int, M: int, dtype_bytes: int = 4, device=None) -> int:
     per = (3 * N * N + 5 * N * M) * dtype_bytes
-    return max(1, int(_HBM_BUDGET / max(per, 1)))
+    return max(1, int(_memory_budget(device) / max(per, 1)))
 
 
 @dataclass
@@ -159,8 +172,9 @@ def solve_problems(
         buckets[key].append(item)
 
     results: list[ProblemResult | None] = [None] * len(prepared)
+    dtype_bytes = _dtype_bytes(settings.get("dtype"))
     for (N, M), all_items in buckets.items():
-        chunk = _max_chunk(N, M)
+        chunk = _max_chunk(N, M, dtype_bytes)
         chunks = [
             all_items[i : i + chunk] for i in range(0, len(all_items), chunk)
         ]
@@ -185,6 +199,16 @@ def solve_problems(
                     flush=True,
                 )
     return results  # type: ignore[return-value]
+
+
+def _dtype_bytes(dtype) -> int:
+    """Bytes per element of the solve: an explicit ``dtype`` setting,
+    else the Settings default (f64 under x64)."""
+    import jax
+
+    if dtype is None:
+        return 8 if jax.config.jax_enable_x64 else 4
+    return np.dtype(dtype).itemsize
 
 
 def _solve_bucket(N, M, items, results, settings):

@@ -2,11 +2,11 @@
 conditions.
 
 The reference C solver has no derivative support (differentiation lives
-in external ecosystem projects); on TPU a differentiable batched QP is a
+in external ecosystem projects); here a differentiable batched QP is a
 first-class layer for end-to-end learning (OptNet-style).  Forward =
 the batched solve; backward = one linear solve against the *same masked
 reduced KKT* machinery the polish step uses (polish.py), so the
-backward pass is also pure batched dense algebra on the MXU.
+backward pass is also pure batched dense algebra.
 
 Derivation (standard implicit-function argument at a solution with
 strict complementarity): with active rows A_a treated as equalities

@@ -1,4 +1,4 @@
-"""AOT export — the TPU-native analogue of the reference's EMBEDDED mode.
+"""AOT export — the compiled-program analogue of the reference's EMBEDDED mode.
 
 The reference's EMBEDDED build (CMakeLists.txt:48-55, include/osqp.h:35-60)
 produces an allocation-free solver for a *fixed problem structure*:
@@ -92,7 +92,7 @@ def export_solver(
 ) -> bytes:
     """Serialize a compiled batched solver for fixed (B, n, m, settings).
 
-    ``platforms``: list like ["tpu"], ["cpu"]; defaults to the current
+    ``platforms``: list like ["cuda"], ["cpu"]; defaults to the current
     default backend.
     """
     s = Settings(dtype=dtype, **settings)

@@ -137,10 +137,11 @@ def solve_sparse(P, q, A, l, u, x0=None, y0=None, **settings) -> BatchSolveResul
     t0 = _time.perf_counter()
     # B = 1 polishes on the HOST (exact sparse KKT, polish_host.py):
     # the device's matrix-free CG polish needs up to tens of thousands
-    # of iterations on hard masked KKTs (DTOC3), and that fused final
-    # dispatch is what crashed the TPU worker watchdog on AUG2D-sized
-    # f64 programs.  Multi-instance sparse batches keep the on-device
-    # CG polish (their per-instance systems share the dispatch).
+    # of iterations on hard masked KKTs (DTOC3), while an exact sparse
+    # factorization of the reduced KKT is one splu.  Multi-instance
+    # sparse batches keep the on-device CG polish (their per-instance
+    # systems share the dispatch).  Moving B = 1 polish onto the card
+    # changes polish results and waits for a Maros cell (ROADMAP 2.2).
     host_polish = bool(s.polish) and B == 1
     res = _solve_segmented(
         cfg, int(s.scaling), bool(s.polish) and not host_polish,
@@ -150,8 +151,8 @@ def solve_sparse(P, q, A, l, u, x0=None, y0=None, **settings) -> BatchSolveResul
         rho0, dyn, x0, y0,
         time_limit=float(s.time_limit),
         # Large sparse solves with deep inner-CG loops can spend tens of
-        # minutes in one device program, which gets the TPU worker
-        # killed; bound each dispatch (polling cost is negligible at
+        # minutes in one device program; bound each dispatch so Ctrl-C
+        # and time_limit stay responsive (polling cost is negligible at
         # this scale).
         max_fused_iters=2000,
         verbose=bool(s.verbose),

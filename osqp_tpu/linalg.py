@@ -1,11 +1,12 @@
 """Batched dense linear-algebra primitives.
 
 The reference implements ~25 CSC/vector kernels in C (src/lin_alg.c:7-413).
-On TPU almost all of them collapse to fused jnp expressions over dense
-batched arrays; only the handful used across modules live here.  Everything
+Over dense batched arrays almost all of them collapse to fused jnp
+expressions; only the handful used across modules live here.  Everything
 takes a leading batch axis B.
 
-Matrix products use the MXU via batched matvecs expressed as einsum.
+Matrix products are batched matvecs expressed as einsum at
+``precision="highest"``.
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ import jax.numpy as jnp
 def with_high_precision(fn):
     """Trace ``fn`` under float32 matmul precision.
 
-    On TPU, XLA lowers float32 dots to bfloat16 passes by default; a QP
-    solver converging to eps = 1e-3..1e-5 needs true f32 accumulation.
-    Wrapping the traced body also covers the dots *inside* XLA's
-    cholesky / triangular_solve / LU expansions.
+    On GPUs with tensor cores XLA may run float32 dots in TF32 (a 10-bit
+    mantissa, ~1e-3 relative error) by default; a QP solver converging
+    to eps = 1e-3..1e-5 needs true f32 accumulation.  Wrapping the traced
+    body also covers the dots *inside* XLA's cholesky / triangular_solve
+    / LU expansions.
     """
 
     @wraps(fn)
@@ -59,8 +61,8 @@ def _is_ell(A) -> bool:
 def mat_vec(A, x: jax.Array) -> jax.Array:
     """Batched A @ x:  (B, m, n) x (B, n) -> (B, m)  (lin_alg.c:241-271).
 
-    Dense operands lower to a batched matmul on the MXU; ELL sparse
-    operands (osqp_tpu.sparse_ops) to a gather + rowwise reduce.
+    Dense operands lower to a batched matmul; ELL sparse operands
+    (osqp_tpu.sparse_ops) to a gather + rowwise reduce.
     """
     if _is_ell(A):
         from .sparse_ops import ell_matvec
@@ -92,6 +94,33 @@ def vec_dot(a: jax.Array, b: jax.Array) -> jax.Array:
     if a.shape[-1] == 0:
         return jnp.zeros(a.shape[:-1], a.dtype)
     return jnp.sum(a * b, axis=-1)
+
+
+def spd_inverse(M: jax.Array) -> jax.Array:
+    """Explicit inverse of batched SPD matrices (B, n, n).
+
+    Batched Cholesky + one wide triangular solve (cuSOLVER ``potrf`` and
+    cuBLAS ``trsm`` on a GPU), then M^-1 = T' T with T = L^-1.  A
+    symmetric Jacobi equilibration (unit diagonal; exact, since
+    inv(M) = D inv(DMD) D) keeps the explicit-inverse product well
+    scaled.  Instances that are not positive definite come back as NaN,
+    the convexity signal callers rely on.
+    """
+    n = M.shape[-1]
+    if n == 0:
+        return M
+    dg = jnp.diagonal(M, axis1=-2, axis2=-1)
+    d = jnp.where(dg > 0, 1.0 / jnp.sqrt(jnp.where(dg > 0, dg, 1.0)),
+                  jnp.asarray(jnp.nan, M.dtype))
+    Ms = M * d[..., :, None] * d[..., None, :]
+    L = jnp.linalg.cholesky(Ms)
+    eye = jnp.broadcast_to(jnp.eye(n, dtype=M.dtype), M.shape)
+    T = jax.lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
+    X = jnp.einsum(
+        "...kn,...km->...nm", T, T, preferred_element_type=M.dtype,
+        precision="highest",
+    )
+    return X * d[..., :, None] * d[..., None, :]
 
 
 def bwhere(mask: jax.Array, new, old):

@@ -10,7 +10,8 @@ is *block tridiagonal* with block size ``b = nx + nu``: stage costs make
 P block diagonal, and dynamics rows ``x_{k+1} = A_d x_k + B_d u_k``
 couple only adjacent stage blocks.  The reference handles such structure
 implicitly through sparse LDL' with AMD ordering
-(lin_sys/direct/qdldl/qdldl_interface.c:177-323); on TPU the idiomatic
+(lin_sys/direct/qdldl/qdldl_interface.c:177-323); on batched dense
+arrays the idiomatic
 equivalent is a *blocked Cholesky (block Thomas / discrete-Riccati-style)
 recursion* over the stages:
 
@@ -22,7 +23,7 @@ computed with one ``lax.scan`` over stages, each step a *batched* b x b
 Cholesky over the instance axis.  Cost is O(N b^3) per instance instead
 of the dense backends' O((N b)^3) — for long horizons this is the
 asymptotically right factorization, and every step is a dense batched
-matmul on the MXU.
+matmul.
 
 The per-iteration solve is a forward scan (``y_i = C_i^{-1} (b_i - G_i
 y_{i-1})``) and a reverse scan (``x_i = C_i^{-T} (y_i - G_{i+1}' x_{i+1})``),

@@ -1,13 +1,13 @@
-"""Dense Schur-complement Cholesky backend (default).
+"""Dense Schur-complement Cholesky backend.
 
 Replaces AMD + QDLDL sparse LDL' (lin_sys/direct/qdldl/) with a batched
 dense Cholesky of the n x n reduced matrix
 
     M = P + sigma I + A' diag(rho) A
 
-On TPU there is no fill-in concept and no ordering problem; a batched
-dense factorization of M runs on the MXU and the per-iteration work is
-two batched triangular solves + two batched matvecs.
+Dense storage has no fill-in and no ordering problem; a batched dense
+factorization of M is one cuSOLVER call on a GPU and the per-iteration
+work is two batched triangular solves + two batched matvecs.
 
 Equivalence with the reference KKT solve (qdldl_interface.c:350-376):
 eliminating nu from

@@ -1,4 +1,4 @@
-"""Explicit-inverse Schur-complement backend (default, fastest on TPU).
+"""Explicit-inverse Schur-complement backend (default).
 
 Same reduction as :mod:`.dense_chol` (M = P + sigma I + A' diag(rho) A),
 but at factorization time the *inverse operator* is materialized:
@@ -10,11 +10,10 @@ so the per-iteration KKT solve is a single batched GEMV
 
     [x~; z~] = W @ (rhs_x + A'(rho * rhs_z))
 
-with zero triangular substitutions.  Rationale: on TPU a batched
-triangular solve with a width-1 right-hand side serializes into O(n)
-tiny steps and starves the MXU, while W @ t is one memory-bound fused
-matmul — this is the speed-of-light formulation for the batched regime
-(thousands of instances/chip, BASELINE.json config 2).
+with zero triangular substitutions.  Rationale: a batched triangular
+solve with a width-1 right-hand side is a chain of n dependent steps,
+while W @ t is one memory-bound fused product — the speed-of-light
+formulation for the batched regime (thousands of instances per card).
 
 Numerics: applying an explicit inverse has forward error O(kappa(M) eps),
 the same order as triangular solves; Ruiz equilibration bounds kappa and
@@ -22,52 +21,21 @@ ADMM is a fixed-point iteration that tolerates inexact subproblem solves
 (and polish performs iterative refinement, polish.c:134-181).  For
 ill-conditioned problems select ``dense_chol`` or ``kkt_lu``.
 
-Factorization cost: one batched Cholesky + two n-wide triangular solves
-+ one GEMM — all MXU-dense, paid once at setup and once per rho update
-(reference parity: qdldl_interface.c:305,407-409).
+Factorization cost: one batched Cholesky + one n-wide triangular solve
++ two GEMMs (:func:`osqp_tpu.linalg.spd_inverse`), paid once at setup
+and once per rho update (reference parity: qdldl_interface.c:305,407-409).
 """
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
+from ..linalg import spd_inverse
 from .dense_chol import form_schur
 
-# Factorization strategy.  "recursive": blocked 2x2 Schur recursion —
-# pure batched GEMMs on the MXU (ops/spd_inverse.py), ~30x faster than
-# "chol" (jnp cholesky + triangular solves, which serialize into O(n)
-# panel steps on TPU; see tools/profile_setup.py).
-_FACTOR_MODE = os.environ.get("OSQP_TPU_FACTOR_MODE", "recursive")
-
-# Hot-loop layout note (round-1 experiments, measured on v5e at
-# B=8192, n=100, m=200 — see docs/performance.md): the batch-major f32
-# layout below with single-pass VPU reductions IS the practical
-# roofline (~3.1 ms/iter).  Rejected alternatives, removed from the
-# code path: batch-minor (n, n, B) operand storage (no measured gain —
-# the (8,128) tile-padding model overstates recoverable traffic), bf16
-# operand storage (fixed ~2e-3 operator error stalls ADMM at default
-# tolerances), an MXU einsum GEMV (multi-pass bf16 emulation re-reads
-# the operands), and a hand-fused Pallas iteration kernel (~6 ms/iter
-# vs XLA's own fusion at ~3.1 ms).
-
-
-def _chol_inverse(M):
-    """Explicit inverse via XLA cholesky + wide triangular solves —
-    numerically the classic route, but its sequential panel steps are
-    ~30x slower than the recursive path on TPU (tools/profile_setup.py)."""
-    n = M.shape[-1]
-    L = jnp.linalg.cholesky(M)
-    eye = jnp.broadcast_to(jnp.eye(n, dtype=M.dtype), M.shape)
-    Linv = jax.lax.linalg.triangular_solve(
-        L, eye, left_side=True, lower=True, transpose_a=False
-    )
-    return jnp.einsum(
-        "bkn,bkm->bnm", Linv, Linv, preferred_element_type=M.dtype,
-        precision="highest",
-    )
+# Operands stay f32: bf16 operand storage was tried and rejected — its
+# fixed ~2e-3 operator error stalls ADMM at the default tolerances.
 
 
 # Per-iteration refinement gate.  An explicit-inverse solve has forward
@@ -89,51 +57,21 @@ _REFINE_TOL_F64 = 1e-12
 def init(P, A, sigma, rho_vec, **_):
     M = form_schur(P, A, sigma, rho_vec)
     n = P.shape[-1]
-    if _FACTOR_MODE == "recursive" and n:
-        from ..ops.spd_inverse import spd_inverse
-
-        X = spd_inverse(M)
-        # Residual guard: instances whose inverse is inaccurate (kappa
-        # beyond what the recursion+Newton-Schulz handles in this dtype)
-        # are recomputed via cholesky — PER INSTANCE: passing instances
-        # keep their recursive-path inverse bit-for-bit, and the whole
-        # fallback branch is skipped (scalar cond) when nobody fails.
-        # NaN instances (non-PD) do NOT trigger the fallback — NaN is
-        # the convexity signal and the cholesky route would produce it
-        # too.
+    Minv = spd_inverse(M)
+    if n:
+        # The inverse residual sets the per-instance refinement flag
+        # below; NaN (non-PD) compares False and stays unrefined.
         R = jnp.eye(n, dtype=M.dtype) - jnp.einsum(
-            "bij,bjk->bik", M, X, preferred_element_type=M.dtype,
+            "bij,bjk->bik", M, Minv, preferred_element_type=M.dtype,
             precision="highest",
         )
         resid = jnp.max(jnp.abs(R), axis=(-2, -1))
-        tol = 1e-3 if M.dtype == jnp.float32 else 1e-8
-        bad = resid > tol  # (B,); NaN > tol is False
-
-        def _fallback(ops):
-            M_, X_ = ops
-            # Failing instances route through cholesky; the rest are
-            # masked to the identity (whose factorization is exact) so
-            # no ill-conditioned panel pollutes them, then dropped by
-            # the select.
-            Mb = jnp.where(bad[:, None, None], M_, jnp.eye(n, dtype=M_.dtype))
-            return jnp.where(bad[:, None, None], _chol_inverse(Mb), X_)
-
-        Minv = jax.lax.cond(jnp.any(bad), _fallback, lambda ops: ops[1], (M, X))
     else:
-        Minv = _chol_inverse(M) if n else M
-        if n:
-            R = jnp.eye(n, dtype=M.dtype) - jnp.einsum(
-                "bij,bjk->bik", M, Minv, preferred_element_type=M.dtype,
-                precision="highest",
-            )
-            resid = jnp.max(jnp.abs(R), axis=(-2, -1))
-        else:
-            resid = jnp.zeros(M.shape[0], M.dtype)
+        resid = jnp.zeros(M.shape[0], M.dtype)
     if A.shape[-2]:
         # (A M^-1)' = M^-1 A' stored transposed, (B, n, m): both
-        # per-iteration GEMV reductions then contract the *second-to-last*
-        # (sublane) axis — the cheap reduction direction on the VPU
-        # (M^-1 is symmetric, so it contracts either way).
+        # per-iteration GEMV reductions then contract the second-to-last
+        # axis (M^-1 is symmetric, so it contracts either way).
         AMinvT = jnp.einsum(
             "bnk,bmk->bnm", Minv, A, preferred_element_type=P.dtype,
             precision="highest",
@@ -163,9 +101,9 @@ def refine_signal(factor):
 
 def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None, refine=False):
     t = rhs_x
-    # Single-pass VPU reductions over the sublane axis (see init): the
-    # hot GEMV is memory-bound, so one exact-f32 pass over each operand
-    # beats the MXU einsum's multi-pass bf16 emulation.  Minv symmetric.
+    # Broadcast-multiply + reduce over the second-to-last axis (see
+    # init): the hot GEMV is memory-bound and XLA fuses each into one
+    # exact-f32 pass over its operand.  Minv symmetric.
     if A.shape[-2]:
         t = t + jnp.sum(A * (rho_vec * rhs_z)[:, :, None], axis=1)
     x_t = jnp.sum(factor["Minv"] * t[:, :, None], axis=1)
@@ -188,15 +126,8 @@ def solve(factor, A, rho_vec, rhs_x, rhs_z, x0=None, refine=False):
             # f64-residual step: 511/3325; two steps: 130/150 — the
             # exact f64 trajectory at f32 storage).  The f32->f64
             # upcasts are exact and XLA fuses them into the operand
-            # reads; only the residual GEMVs run in (emulated) f64, the
-            # correction and iterates stay f32.
-            #
-            # GEMV formulation matters enormously for emulated f64: an
-            # f64 einsum lowers to XLA's emulated *dot* and scalarizes
-            # (measured 44 ms at B=256 n=550 on v5e); the elementwise-
-            # multiply + reduce form below keeps the double-double
-            # emulation on the VPU at ~3.4 ms — 2x an f32 GEMV, full
-            # f64 accuracy (1.3e-14 measured max rel err).
+            # reads; only the residual GEMVs run in f64, the correction
+            # and iterates stay f32.
             P64 = factor["P"].astype(hi)
             A64 = A.astype(hi)
             rho64 = rho_vec.astype(hi)

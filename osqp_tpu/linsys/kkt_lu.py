@@ -18,8 +18,6 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..constants import ErrorCode, OSQPError
-
 
 def form_kkt(P, A, sigma, rho_inv_vec):
     """K as above, batched (B, n+m, n+m) (mirrors kkt.c:6-177 dense)."""
@@ -50,23 +48,7 @@ def _lu_solve(factor, b):
     return x[..., 0]
 
 
-# TPU's batched-LU custom call (LuDecompositionBlock) exceeds scoped
-# VMEM near KKT dim 7k and serializes long before; polish auto-switches
-# to its SPD Schur path there (polish.py), but a user-selected kkt_lu
-# backend has no dense alternative with the same PSD-singular
-# robustness, so fail fast with direction instead of a compiler crash.
-_MAX_KKT_DIM = 6144
-
-
 def init(P, A, sigma, rho_vec, **_):
-    n, m = P.shape[-1], A.shape[-2]
-    if n + m > _MAX_KKT_DIM:
-        raise OSQPError(
-            ErrorCode.DATA_VALIDATION_ERROR,
-            f"kkt_lu: KKT dimension {n + m} exceeds the TPU batched-LU "
-            f"limit ({_MAX_KKT_DIM}); use 'dense_chol' (SPD Schur), "
-            "'cg' (matrix-free), or the sparse path (solve_sparse)"
-        )
     return _lu_factor(form_kkt(P, A, sigma, 1.0 / rho_vec))
 
 

@@ -53,7 +53,7 @@ def collect_paths(args_paths):
 # embedding is wasteful past a few thousand and impossible at 1e4+.
 SPARSE_N_CUTOFF = 4096
 # Mid-size problems that are STRUCTURALLY sparse also route through the
-# sparse path above this size: the dense embedding both wastes HBM and
+# sparse path above this size: the dense embedding both wastes memory and
 # can be f32-hostile (AUG3D: a diagonal P with zero weights on boundary
 # faces conditions the dense f32 factor past the residual guard, forcing
 # the f64 fallback; the ELL path solves it in f64 with host polish to
@@ -108,9 +108,8 @@ def _solve_one_sparse(qp, settings):
     backend's subproblem accuracy bounds the trajectory (round-4
     measurement: CVXQP1_L needs ~1e-8-relative KKT solves for the
     reference's 650-iteration trajectory — 18,300 iterations without
-    them — and f32 cannot reach that floor).  The f64 is the TPU's
-    emulated double (genuine f64, measured 4.3e-13), and the CG path
-    is gather/elementwise-bound so the cost is a small multiple."""
+    them — and f32 cannot reach that floor).  The CG path is
+    gather/elementwise-bound, so f64 costs a small multiple."""
     import jax as _jax
 
     from .large import solve_sparse
@@ -158,7 +157,7 @@ def run_maros(
     """Solve a QPS file list; returns (per-problem rows, summary).
 
     ``fallback_dtype``: problems that fail to solve in the primary dtype
-    (e.g. f32 on TPU losing to ill-conditioning that Ruiz cannot fix —
+    (e.g. f32 losing to ill-conditioning that Ruiz cannot fix —
     SURVEY.md §7 'hard parts') are retried one-by-one in this dtype
     (typically "float64"); the row gains ``fallback=True``.
     """
@@ -188,8 +187,8 @@ def run_maros(
         settings["dtype"] = dtype
     if cg_max_iter:
         # bounds the indirect backend's inner loop — long sparse solves
-        # with unbounded inner CG can push a single device dispatch past
-        # the TPU worker's tolerance (see large.py max_fused_iters)
+        # with unbounded inner CG can make one device dispatch very
+        # long (see large.py max_fused_iters)
         settings["cg_max_iter"] = int(cg_max_iter)
 
     t0 = time.perf_counter()

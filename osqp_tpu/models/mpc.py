@@ -9,7 +9,7 @@ over the KKT.  Here the decision vector is *stage-interleaved*,
 with a zero-pinned padding input after the terminal state so every stage
 block has identical size ``b = nx + nu``.  Under this ordering the Schur
 complement ``P + sigma I + A' rho A`` is block tridiagonal and the
-``block_tridiag`` backend factors it in O(N b^3) — the TPU-native
+``block_tridiag`` backend factors it in O(N b^3) — the batched dense
 analogue of exploiting MPC sparsity through AMD ordering in the
 reference's QDLDL path.
 

@@ -1,6 +1,6 @@
 """Intra-problem sharding: ONE large QP spread across the mesh.
 
-SURVEY.md §2 names two TPU scaling axes; this is axis (b): when a single
+SURVEY.md §2 names two scaling axes; this is axis (b): when a single
 QP is too large for one chip, shard the *constraint dimension m* of the
 matrix-free ``cg`` backend across devices.  The per-iteration operators
 partition naturally:
@@ -172,7 +172,7 @@ def solve_single_sharded_sparse(
         jnp.full((1,), s.rho, dtype),
         dyn, None, None,
         time_limit=float(s.time_limit),
-        max_fused_iters=2000,  # same TPU-worker duration bound as large.py
+        max_fused_iters=2000,  # same dispatch bound as large.py
     )
     if pad:
         res = res._replace(

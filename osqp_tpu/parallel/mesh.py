@@ -1,13 +1,13 @@
-"""Multi-chip batch sharding.
+"""Multi-card batch sharding.
 
 The reference has no distributed backend at all (SURVEY §2: QDLDL is
-single-threaded, qdldl_interface.c:216); scaling on TPU comes from
-sharding the *instance batch* across chips of a ``jax.sharding.Mesh``.
-Each QP stays chip-local — zero collectives in the hot loop; XLA inserts
-nothing on ICI/DCN because every op is batch-parallel.  Only host-side
-reductions (e.g. Maros-Meszaros aggregation) communicate.
+single-threaded, qdldl_interface.c:216); scaling across cards comes from
+sharding the *instance batch* over a 1-D ``jax.sharding.Mesh`` of all
+devices.  Each QP stays card-local — zero collectives in the hot loop;
+XLA inserts no NVLink traffic because every op is batch-parallel.  Only
+host-side reductions (e.g. Maros-Meszaros aggregation) communicate.
 
-Works identically on a real TPU slice and on a virtual CPU mesh
+Works identically on a multi-GPU host and on a virtual CPU mesh
 (``--xla_force_host_platform_device_count=N``) used for testing.
 """
 

@@ -1,10 +1,10 @@
 """Multi-host (DCN) scaling helpers.
 
-The reference has no distributed layer at all (SURVEY.md §2); for the
-TPU framework the multi-host story is: initialize the jax distributed
-runtime, build a global mesh over all hosts' devices, shard the
-instance batch (ICI within a slice, DCN across hosts carries no hot-loop
-traffic — every op is batch-parallel), and aggregate results host-side.
+The reference has no distributed layer at all (SURVEY.md §2); here the
+multi-host story is: initialize the jax distributed runtime, build a
+global mesh over all hosts' devices, shard the instance batch (the
+network between hosts carries no hot-loop traffic — every op is
+batch-parallel), and aggregate results host-side.
 
 Typical Maros-Meszaros multi-host run (one process per host):
 

@@ -24,13 +24,12 @@ dimension:
 
 * small/medium: batched LU of K_delta (the quasi-definite form the
   reference LDL's);
-* large (n + m > ``_SCHUR_KKT_DIM``): block elimination to the SPD
-  Schur complement ``S = P + d I + (1/d)(MA)'(MA)`` solved with the
-  GEMM-only blocked Cholesky (:mod:`osqp_tpu.ops.spd_inverse`) — the
-  TPU's batched-LU custom call both serializes and exceeds scoped VMEM
-  at KKT dims in the thousands.  The augmented term makes S stiff at
+* large (n + m > ``_SCHUR_KKT_DIM``): block elimination to the n x n SPD
+  Schur complement ``S = P + d I + (1/d)(MA)'(MA)``, inverted explicitly
+  (:func:`osqp_tpu.linalg.spd_inverse`) — a smaller factorization than
+  the (n+m) LU once m is large.  The augmented term makes S stiff at
   the reference delta (1e-6), so this path regularizes at
-  ``d = max(delta, 1e-4)`` in f32 and lets the refinement loop (which
+  ``d = max(delta, 1e-4)`` and lets the refinement loop (which
   targets the UNregularized KKT either way) recover the accuracy; the
   acceptance test remains the final guard.
 """
@@ -44,16 +43,20 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .linalg import mat_tvec, mat_vec
+from .linalg import mat_tvec, mat_vec, spd_inverse
 from .linsys import kkt_lu
-from .ops.spd_inverse import spd_inverse
 from .termination import compute_products, residual_norms
 from .types import DynSettings, QPData, ScalingData, StaticConfig
 
 # Above this KKT dimension the batched LU is replaced by the SPD Schur
-# path (observed: LuDecompositionBlock VMEM-OOMs ~7k on v5e and
-# serializes long before that).
-_SCHUR_KKT_DIM = 2048
+# path.  Timed on an H100 (factor + one solve, B=1, f32/f64; PERF.md,
+# "Bring-up findings", tools/bringup_timings.py): Schur is 3-5x faster
+# at every dim, but LU is the more accurate path (it factors K_delta at
+# the reference delta; Schur squares the conditioning and clamps d), and
+# polish runs once per solve.  LU stays while it costs <= ~15 ms
+# (13.6/15.3 ms f32/f64 at dim 4096); at 8192 it costs 36/43 ms against
+# Schur's 11/12 ms.
+_SCHUR_KKT_DIM = 4096
 
 
 def dataclasses_replace_polish_dtype(cfg):
@@ -154,15 +157,7 @@ def _make_kkt_solver(n: int, m: int, P, MA, delta, dtype, prefer_schur=False):
 
         return solve
 
-    # TPU's batched-LU custom call has no f64 emulation (measured:
-    # INTERNAL compile error on v5e); the GEMM-only Schur path below is
-    # pure emulated-f64 arithmetic, so f64-on-accelerator routes there
-    # regardless of KKT size.
-    lu_ok = (
-        not prefer_schur
-        and (dtype != jnp.float64 or jax.default_backend() == "cpu")
-    )
-    if n + m <= _SCHUR_KKT_DIM and lu_ok:
+    if n + m <= _SCHUR_KKT_DIM and not prefer_schur:
         delta_vec = jnp.full(MA.shape[:-1], delta, dtype)
         factor = kkt_lu._lu_factor(kkt_lu.form_kkt(P, MA, delta, delta_vec))
         return lambda rhs: kkt_lu.solve_raw(factor, rhs)
@@ -173,11 +168,11 @@ def _make_kkt_solver(n: int, m: int, P, MA, delta, dtype, prefer_schur=False):
     # nu_i = -r_z_i / d = 0 exactly (their r_z is 0 by construction).
     #
     # d is clamped to 1e-4 in BOTH dtypes: at the reference delta (1e-6)
-    # S is ~1e12-conditioned and even the emulated-f64 explicit inverse
-    # cannot solve it (measured on-chip: CVXQP3_S f64 polish rejected at
-    # d = 1e-6 but reaches published-optimum accuracy at d = 1e-4, while
-    # the CPU batched-LU path at delta = 1e-6 accepts — the LU factors
-    # K_delta directly and never forms the squared-conditioned S).  The
+    # S is ~1e12-conditioned and even an f64 explicit inverse cannot
+    # solve it (measured: CVXQP3_S f64 polish rejected at d = 1e-6 but
+    # reaches published-optimum accuracy at d = 1e-4, while the batched-
+    # LU path at delta = 1e-6 accepts — the LU factors K_delta directly
+    # and never forms the squared-conditioned S).  The
     # refinement loop targets the UNregularized KKT either way, so the
     # larger d only slows refinement, it does not bias the fixed point.
     d_eff = jnp.maximum(jnp.asarray(delta, dtype), jnp.asarray(1e-4, dtype))
@@ -248,17 +243,15 @@ def polish(
         # LISWET/YAO/POWELL20 — fail for the reference algorithm too,
         # PARITY_REF.json; DTOC3 was fixed by CG depth, not passes),
         # and each extra pass multiplies the final fused dispatch's CG
-        # work, which at n ~ 2e4 in f64 is what crashed the TPU worker
-        # watchdog (round-4 AUG2D incident).
+        # work (up to 40k iterations per pass at n ~ 2e4).
         passes = 1
     pd = getattr(cfg, "polish_dtype", None)
     if pd is not None and jnp.dtype(pd) != native_dtype:
         # Precision-upgraded polish (typically f32 solve + f64 polish):
-        # polish runs ONCE per solve, and the TPU's emulated f64 GEMMs
-        # are genuine double precision at ~1.6x the f32-highest cost
-        # (measured 4.3e-13 matmul error on v5e), so the reduced-KKT
-        # solve + refinement escape the f32 accuracy floor that makes
-        # the acceptance test fail on ill-conditioned problems.
+        # polish runs ONCE per solve, so the reduced-KKT solve +
+        # refinement can afford f64 to escape the f32 accuracy floor
+        # that makes the acceptance test fail on ill-conditioned
+        # problems.
         # Requires jax_enable_x64 when targeting float64.
         tgt = jnp.dtype(pd)
         up = lambda a: (

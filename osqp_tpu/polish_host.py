@@ -5,8 +5,7 @@ reduced KKT (polish.c:212-350: fresh LDL at delta = 1e-6).  On the
 device, the never-densifying sparse path must solve that system with
 matrix-free CG — and on hard problems (DTOC3's masked Schur needs
 ~24-40k Jacobi-CG iterations) the one fused final dispatch becomes a
-multi-minute device program that the TPU worker's watchdog kills
-(round-4 AUG2D incident).  Polish is setup-class work, not hot-loop
+multi-minute device program.  Polish is setup-class work, not hot-loop
 work, so for B = 1 sparse solves it runs HERE: an exact scipy splu of
 the true dynamic-shape reduced KKT in f64 — the same division of labor
 as problem ingestion (host scipy -> device ELL).

@@ -56,7 +56,7 @@ def scale_data(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     folded into the norm computations on the fly (colnorm of c·DPD is
     c·D_j·max_i D_i|P_ij|, etc.) and applied to P/A once at the end.
     This is algebraically identical to the reference's in-place loop but
-    streams ~3x less HBM per sweep — the big matrices are only read.
+    streams ~3x fewer device-memory bytes per sweep — the big matrices are only read.
 
     ELL sparse operands (osqp_tpu.sparse_ops) take the matrix-free
     branch below — the same sweeps with gather-based norm reductions,

@@ -2,7 +2,7 @@
 
 The reference consumes upper-triangular CSC for P and CSC for A
 (include/types.h:21-29, src/cs.c) and validates in validate_data
-(auxil.c:791-879).  On TPU the device layout is dense batched arrays;
+(auxil.c:791-879).  On the device the layout is dense batched arrays;
 CSC survives only as the *ingestion* format so that the value-indexed
 update entry points (osqp_update_P / osqp_update_A, osqp.c:1012-1279)
 keep their exact nnz-index semantics.
@@ -68,7 +68,7 @@ def to_upper_csc(P, n: int):
 def triu_to_full(Pu) -> np.ndarray:
     """Dense symmetric P from upper-triangular CSC (the two-pass
     mat_vec/mat_tpose_vec trick of lin_alg.c:241-323 becomes one dense
-    symmetric matrix on TPU)."""
+    symmetric matrix on the device)."""
     Pd = np.asarray(Pu.todense(), dtype=np.float64)
     return Pd + np.triu(Pd, 1).T
 

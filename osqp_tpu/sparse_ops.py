@@ -3,9 +3,10 @@
 The reference's CSC kernel + SpMV (src/cs.c:28-318, src/lin_alg.c:241-323)
 let it solve n ~ 1e4-1e5 Maros-Meszaros problems; the dense (B, n, n)
 device layout cannot represent them (O(n^2) memory).  This module is the
-TPU-native equivalent: **ELL (padded-row) storage** — every row padded
-to the max nnz/row — because on TPU a sparse matvec built from *gathers* with a
-static shape vectorizes on the VPU, while CSC-style indptr loops do not.
+accelerator equivalent: **ELL (padded-row) storage** — every row padded
+to the max nnz/row — because a sparse matvec built from *gathers* with a
+static shape is one data-parallel XLA program, while CSC-style indptr
+loops are not.
 
     A x   = sum_k val[:, i, k] * x[:, idx[i, k]]          (row gather)
     A' y  = sum_k t_val[:, j, k] * y[:, t_idx[j, k]]      (gather on A')

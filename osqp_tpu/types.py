@@ -1,4 +1,4 @@
-"""Core pytree types for the TPU-native OSQP solver.
+"""Core pytree types for the batched OSQP solver.
 
 The reference keeps all state in a malloc'd ``OSQPWorkspace`` struct
 (reference: include/types.h:182-289).  Here state is a set of immutable
@@ -51,8 +51,8 @@ class QPData:
     """Batched dense QP data.  All leaves carry a leading batch axis B.
 
     ``P`` is stored dense *symmetric* (the reference stores upper-triangular
-    CSC and multiplies in two passes, lin_alg.c:241-323; on TPU a dense
-    symmetric matmul on the MXU is strictly better).
+    CSC and multiplies in two passes, lin_alg.c:241-323; one dense
+    symmetric batched matmul replaces both passes).
     """
 
     P: jax.Array  # (B, n, n) symmetric
@@ -119,8 +119,8 @@ class StaticConfig:
     # see polish.polish for the measured motivation).
     polish_passes: int = con.POLISH_PASSES
     # Run polish in a different precision than the solve (typically
-    # "float64" over an f32 solve: the TPU emulates genuine f64 GEMMs
-    # at ~1.6x f32 cost, and polish runs once per solve).  None = same
+    # "float64" over an f32 solve: polish runs once per solve, so f64
+    # there costs little).  None = same
     # dtype as the solve.  float64 requires jax_enable_x64.
     polish_dtype: str | None = None
 

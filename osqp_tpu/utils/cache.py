@@ -1,4 +1,10 @@
-"""Persistent-compile-cache helper (shared by tests and tools).
+"""Persistent-compile-cache helper (shared by tests, tools, bench.py and
+chip_smoke.py).
+
+Where the cache lives: ``$JAX_COMPILATION_CACHE_DIR`` when it is set —
+nothing here then picks another directory — otherwise the fixed path
+``<repo>/.jax_cache`` (gitignored).  A fixed path matters because the
+directory is part of what makes a later run find its entries.
 
 jax's file cache writes entries NON-atomically (lru_cache.py put():
 plain write_bytes) — a run killed mid-write (timeout/Ctrl-C) leaves a
@@ -14,6 +20,17 @@ from __future__ import annotations
 
 import os
 import tempfile
+
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+REPO_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
+
+
+def compile_cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` if set, else ``<repo>/.jax_cache``."""
+    return os.environ.get(ENV_VAR) or REPO_CACHE
 
 
 def _atomic_put(self, key, val):
@@ -68,14 +85,12 @@ def _atomic_put(self, key, val):
 
 def enable_compile_cache(path: str | None = None) -> str:
     """Enable jax's persistent compilation cache at ``path`` (default:
-    $OSQP_TPU_TEST_CACHE or /tmp/osqp_tpu_xla_cache) with atomic,
-    multi-process-safe writes.  Returns the cache dir."""
+    :func:`compile_cache_dir`) with atomic, multi-process-safe writes.
+    Returns the cache dir."""
     import jax
     from jax._src import lru_cache as _lru
 
-    cache_dir = path or os.environ.get(
-        "OSQP_TPU_TEST_CACHE", "/tmp/osqp_tpu_xla_cache"
-    )
+    cache_dir = path or compile_cache_dir()
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

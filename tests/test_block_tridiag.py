@@ -1,7 +1,7 @@
 """block_tridiag backend: factorization correctness + MPC end-to-end.
 
 The reference exploits MPC sparsity implicitly via AMD+QDLDL
-(lin_sys/direct/qdldl/qdldl_interface.c:177-323); the TPU-native
+(lin_sys/direct/qdldl/qdldl_interface.c:177-323); the batched dense
 equivalent is an explicit blocked Cholesky over stages.  These tests pin
 (a) the block factorization against a dense solve, (b) full-solver
 equivalence with the dense backend on an MPC problem, (c) the

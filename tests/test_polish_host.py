@@ -2,8 +2,8 @@
 
 The B = 1 sparse path polishes via an exact scipy splu of the true
 reduced KKT (setup-class work on the host — the device CG polish
-needed 24-40k iterations on DTOC3-class masked KKTs and crashed the
-TPU worker watchdog at n ~ 2e4 in f64)."""
+needs 24-40k iterations on DTOC3-class masked KKTs, where one exact
+sparse factorization does)."""
 
 import numpy as np
 import pytest

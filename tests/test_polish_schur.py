@@ -59,7 +59,8 @@ def test_schur_polish_equalities(monkeypatch):
 @pytest.mark.slow
 def test_schur_polish_large_smoke():
     # Real threshold: n + m > _SCHUR_KKT_DIM routes to Schur organically.
-    n, m = 1200, 900
+    n, m = 2200, 2000
+    assert n + m > polish_mod._SCHUR_KKT_DIM
     P, q, A, l, u = _qp(n, m, seed=1)
     res = Solver(P=P, q=q, A=A, l=l, u=u, polish=True, verbose=False,
                  eps_abs=1e-4, eps_rel=1e-4).solve()

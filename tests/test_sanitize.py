@@ -1,6 +1,6 @@
 """Sanitizer-grade checks — the valgrind/leak-canary analogue (SURVEY §5:
 reference CI runs valgrind memcheck + a custom_memory allocation counter,
-custom_memory/custom_memory.c:5-8).  On TPU the failure classes are
+custom_memory/custom_memory.c:5-8).  Under JAX the failure classes are
 tracer leaks (host references keeping device buffers alive past a trace)
 and NaNs escaping jitted computations (covered suite-wide by
 JAX_SANITIZE=1 / jax_debug_nans; see conftest.py)."""

@@ -1,11 +1,11 @@
-"""Recursive blocked SPD inversion (ops/spd_inverse.py)."""
+"""Batched SPD inversion (linalg.spd_inverse) and the dense_inv factor."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from osqp_tpu.ops.spd_inverse import spd_inverse
+from osqp_tpu.linalg import spd_inverse
 
 from conftest import assert_allclose
 
@@ -15,6 +15,13 @@ def _spd(B, n, seed=0, cond=10.0):
     M = rng.standard_normal((B, n, n))
     S = np.einsum("bij,bkj->bik", M, M) / n + np.eye(n) / cond
     return S
+
+
+def _ill(n, cond, seed):
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    M = (Q * np.logspace(0, np.log10(cond), n)) @ Q.T
+    return 0.5 * (M + M.T)
 
 
 @pytest.mark.parametrize("n", [1, 3, 8, 17, 32, 100, 130])
@@ -28,13 +35,12 @@ def test_identity_residual_small_f32():
     n = 100
     M = _spd(8, n, seed=1).astype(np.float32)
     X = spd_inverse(jnp.asarray(M))
+    assert X.dtype == jnp.float32
     R = np.eye(n) - np.einsum("bij,bjk->bik", M, np.asarray(X))
     assert np.max(np.abs(R)) < 1e-4
 
 
 @pytest.mark.nanok
-
-
 def test_nan_propagates_for_indefinite():
     M = _spd(2, 16, seed=2)
     M[1] -= 3.0 * np.eye(16)  # make instance 1 indefinite
@@ -48,106 +54,50 @@ def test_zero_dim():
     assert spd_inverse(M).shape == (3, 0, 0)
 
 
-def test_dense_inv_residual_fallback_f32():
-    """An instance too ill-conditioned for the f32 recursion triggers
-    dense_inv's residual-guarded cholesky fallback; the returned inverse
-    must still be usable (residual below the ADMM-grade threshold)."""
-    from osqp_tpu.linsys import dense_inv
-
-    rng = np.random.default_rng(3)
-    n = 64
-    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
-    ev = np.logspace(0, 7, n)  # cond 1e7: hopeless for f32 recursion
-    M_bad = ((Q * ev) @ Q.T).astype(np.float32)
-    M_bad = 0.5 * (M_bad + M_bad.T)
-    P = jnp.asarray(M_bad[None])
-    A = jnp.zeros((1, 0, n), jnp.float32)
-    factor = dense_inv.init(P, A, jnp.float32(0.0), jnp.zeros((1, 0), jnp.float32))
-    X = np.asarray(factor["Minv"])
-    assert np.isfinite(X).all()
-    # The guard must have selected the cholesky branch: result equals
-    # _chol_inverse exactly (the raw recursion differs by >> tol here).
-    X_chol = np.asarray(dense_inv._chol_inverse(P))
-    np.testing.assert_array_equal(X, X_chol)
-    X_rec = np.asarray(spd_inverse(P))
-    assert np.abs(X_rec - X_chol).max() > 0.0  # branches truly differ
-
-
-def test_dense_inv_fallback_is_per_instance():
-    """One ill-conditioned instance in a batch must NOT change the
-    passing instances' factors: they keep the recursive-path inverse
-    bit-for-bit, proving only the failing instance routed through the
-    cholesky fallback (VERDICT r2 item 6)."""
+def test_dense_inv_factor_is_schur_inverse():
+    """dense_inv.init stores M^-1 of the Schur complement and the
+    transposed (A M^-1)' the hot loop reads."""
     from osqp_tpu.linsys import dense_inv
     from osqp_tpu.linsys.dense_chol import form_schur
 
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(5)
+    B, n, m = 3, 12, 20
+    P = jnp.asarray(_spd(B, n, seed=5))
+    A = jnp.asarray(rng.standard_normal((B, m, n)) / np.sqrt(n))
+    rho = jnp.asarray(0.1 + rng.random((B, m)))
+    f = dense_inv.init(P, A, jnp.float64(1e-6), rho)
+    M = np.asarray(form_schur(P, A, 1e-6, rho))
+    Minv = np.linalg.inv(M)
+    assert_allclose(f["Minv"], Minv, tol=1e-9)
+    assert_allclose(f["AMinvT"], Minv @ np.swapaxes(np.asarray(A), 1, 2),
+                    tol=1e-9)
+    assert not np.asarray(f["refine"]).any()
+
+
+def test_dense_inv_refine_flag_is_per_instance():
+    """Only the ill-conditioned instance gets the per-solve refinement
+    flag; the others keep the plain loop body."""
+    from osqp_tpu.linsys import dense_inv
+
     n, B = 64, 4
-    mats = []
-    for i in range(B):
-        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
-        cond = 1e7 if i == 2 else 1e2  # instance 2 breaks the recursion
-        ev = np.logspace(0, np.log10(cond), n)
-        M = (Q * ev) @ Q.T
-        mats.append(0.5 * (M + M.T))
+    mats = [_ill(n, 1e7 if i == 2 else 1e2, seed=i) for i in range(B)]
     P = jnp.asarray(np.stack(mats), jnp.float32)
     A = jnp.zeros((B, 0, n), jnp.float32)
-    rho = jnp.zeros((B, 0), jnp.float32)
-    sigma = jnp.float32(0.0)
+    f = dense_inv.init(P, A, jnp.float32(0.0), jnp.zeros((B, 0), jnp.float32))
+    assert np.asarray(f["refine"]).tolist() == [False, False, True, False]
+    assert np.isfinite(np.asarray(f["Minv"])).all()
 
-    factor = dense_inv.init(P, A, sigma, rho)
-    X = np.asarray(factor["Minv"])
+
+def test_dense_inv_ill_conditioned_f32_inverse_usable():
+    """cond 1e7 in f32: the Cholesky inverse stays finite and its
+    residual is small enough for refinement to recover the solve."""
+    from osqp_tpu.linsys import dense_inv
+
+    n = 64
+    P = jnp.asarray(_ill(n, 1e7, seed=3)[None], jnp.float32)
+    A = jnp.zeros((1, 0, n), jnp.float32)
+    f = dense_inv.init(P, A, jnp.float32(0.0), jnp.zeros((1, 0), jnp.float32))
+    X = np.asarray(f["Minv"], np.float64)
     assert np.isfinite(X).all()
-
-    M_schur = form_schur(P, A, sigma, rho)
-    X_rec = np.asarray(spd_inverse(M_schur))  # pure recursive path
-    X_chol = np.asarray(dense_inv._chol_inverse(M_schur))
-    good = [0, 1, 3]
-    # Good instances: bit-identical to the recursive path.
-    np.testing.assert_array_equal(X[good], X_rec[good])
-    # The bad instance: bit-identical to the cholesky route (and the two
-    # routes genuinely differ there, so the test can't pass vacuously).
-    assert np.abs(X_rec[2] - X_chol[2]).max() > 0.0
-    np.testing.assert_array_equal(X[2], X_chol[2])
-
-
-def test_batchminor_leaf_matches_reference():
-    """The batch-minor (lane-dense) leaf is the same factorization:
-    L matches numpy's cholesky and T inverts it to machine precision,
-    at every leaf size, and the full spd_inverse with a bm leaf keeps
-    the residual guard and the NaN non-PD contract."""
-    import os
-
-    from osqp_tpu.ops.spd_inverse import _chol_inv_leaf_batchminor
-
-    rng = np.random.default_rng(11)
-    for s in (2, 4, 8, 16, 32, 64):
-        B = 5
-        G = rng.standard_normal((B, s, s))
-        M = jnp.asarray(np.einsum("bij,bkj->bik", G, G) + s * np.eye(s))
-        L, T = _chol_inv_leaf_batchminor(M)
-        Lr = np.linalg.cholesky(np.asarray(M))
-        assert np.abs(np.asarray(L) - Lr).max() < 1e-10 * s
-        assert (
-            np.abs(np.einsum("bij,bjk->bik", np.asarray(T), Lr)
-                   - np.eye(s)).max() < 1e-10 * s
-        )
-
-    os.environ["OSQP_TPU_SPD_LEAF"] = "32"
-    os.environ["OSQP_TPU_SPD_LEAF_IMPL"] = "bm"
-    try:
-        B, n = 4, 100
-        G = rng.standard_normal((B, n, n))
-        M = jnp.asarray(np.einsum("bij,bkj->bik", G, G) / n
-                        + 0.1 * np.eye(n))
-        X = spd_inverse(M)
-        assert (
-            np.abs(np.einsum("bij,bjk->bik", np.asarray(M), np.asarray(X))
-                   - np.eye(n)).max() < 1e-10
-        )
-        Xb = spd_inverse(M.at[0].set(-jnp.eye(n)))
-        assert np.isnan(np.asarray(Xb[0])).all()
-        assert np.isfinite(np.asarray(Xb[1:])).all()
-    finally:
-        del os.environ["OSQP_TPU_SPD_LEAF"]
-        del os.environ["OSQP_TPU_SPD_LEAF_IMPL"]
+    R = np.eye(n) - np.asarray(P[0], np.float64) @ X[0]
+    assert np.abs(R).max() < 1.0

@@ -9,7 +9,7 @@ configurations of the same problems:
 * ``cg-ell``     — ELL sparse operands through ``solve_sparse`` (never
   densifies; the large-n path).
 
-Run on the TPU:  python tools/bench_cg_crossover.py [--out FILE]
+Run on the card:  python tools/bench_cg_crossover.py [--out FILE]
 """
 
 import argparse
@@ -48,11 +48,6 @@ def banded_qp(n, seed, band=2):
     return P, q, A, Ax - s, Ax + s
 
 
-def _force(res):
-    np.asarray(res.status_val)
-    return res
-
-
 def run_mode(mode, P, q, A, l, u, B, reps=2):
     import jax
     import jax.numpy as jnp
@@ -67,7 +62,7 @@ def run_mode(mode, P, q, A, l, u, B, reps=2):
     uB = np.broadcast_to(u, (B,) + u.shape)
 
     if mode == "cg-ell":
-        fn = lambda: _force(solve_sparse(P, qB, A, lB, uB, **kw))
+        fn = lambda: jax.block_until_ready(solve_sparse(P, qB, A, lB, uB, **kw))
     else:
         Pd = jnp.asarray(
             np.broadcast_to(P.toarray(), (B,) + P.shape), jnp.float32
@@ -78,7 +73,8 @@ def run_mode(mode, P, q, A, l, u, B, reps=2):
         args = [Pd, jnp.asarray(qB, jnp.float32), Ad,
                 jnp.asarray(lB, jnp.float32), jnp.asarray(uB, jnp.float32)]
         backend = "dense_inv" if mode == "dense_inv" else "cg"
-        fn = lambda: _force(solve_batch(*args, linsys_solver=backend, **kw))
+        fn = lambda: jax.block_until_ready(
+            solve_batch(*args, linsys_solver=backend, **kw))
 
     res = fn()  # compile
     ts = []
@@ -87,7 +83,7 @@ def run_mode(mode, P, q, A, l, u, B, reps=2):
         res = fn()
         ts.append(time.perf_counter() - t0)
     solved = float(np.mean(np.isin(np.asarray(res.status_val), (1, 2))))
-    return dict(time=round(min(ts), 4), solved=solved,
+    return dict(time=float(np.median(ts)), solved=solved,
                 mean_iters=float(np.asarray(res.iter).mean()))
 
 
@@ -113,7 +109,8 @@ def main():
             print(f"n={n:<6} {mode:<10} {row[mode]}", flush=True)
         rows.append(row)
 
-    out = {"device": str(jax.devices()[0].device_kind), "rows": rows}
+    d = jax.devices()[0]
+    out = {"platform": d.platform, "device": d.device_kind, "rows": rows}
     print(json.dumps(out))
     if args.out:
         with open(args.out, "w") as f:

@@ -1,11 +1,11 @@
-"""Produce the Maros-Meszaros-role benchmark artifact (MAROS_r{N}.json).
+"""Produce the Maros-Meszaros-role benchmark record (a JSON file).
 
 Runs the OSQP-paper family suite (osqp_tpu.benchmarks) on the attached
 backend, then the QPS fixture corpus (tests/data + tests/data/generated)
 through the maros harness, and writes one combined artifact with
 per-problem rows and pass rates.
 
-Run on the TPU:   python tools/bench_families.py --out MAROS_r02.json
+Run on the card:   python tools/bench_families.py --out results/families.json
 (first run compiles one program per shape bucket; use nohup for long runs)
 """
 
@@ -22,7 +22,7 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="MAROS_r02.json")
+    ap.add_argument("--out", default=os.path.join("results", "families.json"))
     ap.add_argument("--dims", default="16,32,64,128,256")
     ap.add_argument("--instances", type=int, default=2)
     ap.add_argument("--eps", type=float, default=1e-3)
@@ -33,14 +33,7 @@ def main():
     ap.add_argument("--skip-qps", action="store_true")
     args = ap.parse_args()
 
-    # Expose the cpu platform alongside the accelerator so the f64
-    # fallback (buckets.fallback_context) has somewhere to run — TPUs
-    # have no f64.
-    plats = os.environ.get("JAX_PLATFORMS", "")
     import jax
-
-    if plats and "cpu" not in plats:
-        jax.config.update("jax_platforms", plats + ",cpu")
 
     from osqp_tpu.benchmarks import generate_suite, run_suite
 

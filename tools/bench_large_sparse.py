@@ -1,14 +1,15 @@
 """Large-sparse scale benchmark: one banded QP at n = m in {30k, 100k}
-solved end-to-end on the default backend (the real chip in the bench
-environment) through the duration-adaptive segmented driver, each
-result independently f64-KKT-verified on the host (sparse checker).
+solved end-to-end on the default device through the duration-adaptive
+segmented driver, each result independently f64-KKT-verified on the
+host (sparse checker).
 
 The n = 1e5 size is the EXDATA/CONT-300 class the reference's sparse
-LDL handles (BASELINE.md "n up to ~90k"); dense layouts stop fitting
-HBM beyond ~8k, so this exercises the never-densifying ELL path
+LDL handles; dense layouts stop fitting device memory at a few
+thousand, so this exercises the never-densifying ELL path
 (osqp_tpu/large.py, sparse_ops.py) at the scale it exists for.
+The problem is :func:`bench.banded_qp`, also chip_smoke.py's phase 7.
 
-Usage: python tools/bench_large_sparse.py [--out SCALE_r03.json]
+Usage: python tools/bench_large_sparse.py [--out results/scale.json]
 """
 
 from __future__ import annotations
@@ -20,36 +21,22 @@ import sys
 import time
 
 import numpy as np
-import scipy.sparse as sp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 
-def banded_qp(n, seed=0):
-    m = n
-    main = 2.0 + (np.arange(n) % 5) * 0.3
-    P = sp.diags([np.full(n - 1, -0.7), main, np.full(n - 1, -0.7)],
-                 [-1, 0, 1], format="csc")
-    rng = np.random.default_rng(seed)
-    A = sp.diags([np.ones(m), -0.5 * np.ones(m - 1), 0.25 * np.ones(m - 2)],
-                 [0, 1, 2], shape=(m, n), format="csc")
-    q = rng.standard_normal(n)
-    Ax = A @ rng.standard_normal(n)
-    l = Ax - np.abs(rng.standard_normal(m)) - 0.1
-    u = Ax + np.abs(rng.standard_normal(m)) + 0.1
-    return P, q, A, l, u
-
-
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", type=str, default="SCALE_r04.json")
+    ap.add_argument("--out", type=str,
+                    default=os.path.join("results", "scale.json"))
     ap.add_argument("--sizes", type=str, default="30000,100000")
     args = ap.parse_args()
 
     import jax
 
     import osqp_tpu
+    from bench import banded_qp
     from osqp_tpu.utils.cache import enable_compile_cache
     from osqp_tpu.verify import kkt_check
 
@@ -58,14 +45,12 @@ def main():
     for n in (int(s) for s in args.sizes.split(",")):
         P, q, A, l, u = banded_qp(n)
         walls = []
-        for rep in range(2):  # cold (compile+probe) then warm: the
-            # difference IS the overhead breakdown the round-3 review
-            # asked for (the 194.9 s at n=1e5 was never attributed)
+        for rep in range(2):  # cold (compile+probe) then warm
             t0 = time.perf_counter()
-            res = osqp_tpu.solve_sparse(
+            res = jax.block_until_ready(osqp_tpu.solve_sparse(
                 P, q, A, l, u, eps_abs=1e-3, eps_rel=1e-3,
                 max_iter=10000, polish=True, verbose=False,
-            )
+            ))
             walls.append(time.perf_counter() - t0)
         x = np.asarray(res.x)[0]
         y = np.asarray(res.y)[0]
@@ -75,9 +60,9 @@ def main():
             status=int(np.asarray(res.status_val)[0]),
             iter=int(np.asarray(res.iter)[0]),
             status_polish=int(np.asarray(res.status_polish)[0]),
-            wall_s=round(walls[0], 1),
-            wall_warm_s=round(walls[1], 1),
-            compile_probe_s=round(walls[0] - walls[1], 1),
+            wall_s=walls[0],
+            wall_warm_s=walls[1],
+            compile_probe_s=walls[0] - walls[1],
             kkt_ok=bool(chk["ok"]),
             pri_res=float(chk["pri_res"]),
             dua_res=float(chk["dua_res"]),
@@ -85,13 +70,16 @@ def main():
         print(json.dumps(rows[-1]), flush=True)
 
     out = dict(
+        platform=jax.devices()[0].platform,
         device=jax.devices()[0].device_kind,
         note="banded QP, eps=1e-3, duration-adaptive segmented driver; "
              "wall_s includes cold compiles; wall_warm_s is the cached re-run (device+host work only)",
         rows=rows,
         ok=all(r["status"] == 1 and r["kkt_ok"] for r in rows),
     )
-    with open(os.path.join(REPO, args.out), "w") as f:
+    path = os.path.join(REPO, args.out)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"-> {args.out} ok={out['ok']}")
 

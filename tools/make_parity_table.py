@@ -1,11 +1,11 @@
 """Render the per-problem iteration/objective parity table for PARITY.md.
 
 Merges PARITY_REF.json (reference algorithm at f64, tools/parity_study.py)
-with the latest MAROS_r0N.json (osqp_tpu on-chip run) into a markdown
+with a tools/run_maros_mm.py record (osqp_tpu run on the card) into a markdown
 table: iterations, polish outcome and objective agreement side by side,
 flagging every >2x iteration discrepancy.
 
-Usage: python tools/make_parity_table.py [MAROS_r04.json] [PARITY_REF.json]
+Usage: python tools/make_parity_table.py [results/maros.json] [PARITY_REF.json]
 Prints markdown to stdout.
 """
 
@@ -16,15 +16,15 @@ import sys
 
 
 def main():
-    maros_path = sys.argv[1] if len(sys.argv) > 1 else "MAROS_r04.json"
+    maros_path = sys.argv[1] if len(sys.argv) > 1 else "results/maros.json"
     ref_path = sys.argv[2] if len(sys.argv) > 2 else "PARITY_REF.json"
     maros = json.load(open(maros_path))
     ref = json.load(open(ref_path))
     ref_rows = {r["name"]: r for r in ref["rows"] if "iter" in r}
 
     print(
-        "| Problem | n | m | ref iter | tpu iter | ratio | ref polish | "
-        "tpu polish | ref rel-obj | tpu rel-obj |"
+        "| Problem | n | m | ref iter | our iter | ratio | ref polish | "
+        "our polish | ref rel-obj | our rel-obj |"
     )
     print("|---|---|---|---|---|---|---|---|---|---|")
     flags = 0
@@ -50,10 +50,10 @@ def main():
             f"{row.get('status_polish', 0)} | {fmt(rr.get('rel_obj_err'))} | "
             f"{fmt(rel_t)} |"
         )
-    tpu_pol = sum(1 for r in maros["rows"] if r.get("status_polish") == 1)
+    our_pol = sum(1 for r in maros["rows"] if r.get("status_polish") == 1)
     print(
         f"\nPolish success: reference algorithm {ref['polish_success']}"
-        f"/{ref['problems']}, osqp_tpu {tpu_pol}/{len(maros['rows'])}; "
+        f"/{ref['problems']}, osqp_tpu {our_pol}/{len(maros['rows'])}; "
         f"iteration discrepancies >2x: {flags}."
     )
 

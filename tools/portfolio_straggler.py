@@ -1,6 +1,6 @@
 """Diagnose portfolio-bench stragglers: solve each instance with the host
 reference-parity oracle (tools/ref_osqp.py) and compare iteration counts
-with the batched TPU path's per-instance counts."""
+with the batched device path's per-instance counts."""
 import sys
 sys.path.insert(0, "/root/repo")
 sys.path.insert(0, "/root/repo/tools")

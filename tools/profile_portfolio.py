@@ -1,4 +1,4 @@
-"""Profile the portfolio parametric re-solve path on the TPU: per-resolve
+"""Profile the portfolio parametric re-solve path on the card: per-resolve
 wall, iteration distribution (stragglers), and a solve_core-only timing."""
 import os, sys, time
 sys.path.insert(0, "/root/repo")
